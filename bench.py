@@ -13,14 +13,15 @@ re-printed augmented after each one finishes; the driver parses the
 LAST (most complete) line in the tail, and any truncation only loses
 secondaries.
 
-A persistent XLA compilation cache (VCT_JAX_CACHE, default
-.jax_cache/) makes the warm-up pass cheap on every run after the first
-on a given machine.
+A persistent XLA compilation cache (utils/jax_cache.py:
+JAX_COMPILATION_CACHE_DIR, else .jax_cache/ in the checkout) makes the
+warm-up pass cheap on every run after the first on a given machine.
 
 Baseline: HM-16.5 TAppEncoderStatic single-thread
-encoder_randomaccess_main.cfg on this machine = 0.0207 fps (BASELINE.md
-row 3, 2026-08-19).  `extra` carries kbps AND Y-PSNR per config so
-quality regressions surface round-to-round.
+encoder_randomaccess_main.cfg on a 2-vCPU host CPU = 0.0207 fps
+(BASELINE.md row 3, 2026-08-19); the HM_* / JM_* constants below are
+host-CPU runs of the reference encoders.  `extra` carries kbps AND
+Y-PSNR per config so quality regressions surface round-to-round.
 
 Env knobs:
   VCT_BENCH_CONFIGS   comma list of ra,intra,ldp,foreman,jm (default all)
@@ -43,19 +44,6 @@ JM_BASELINE_FPS = 22.6
 T0 = time.time()
 
 
-def _enable_jax_cache() -> None:
-    cache = os.environ.get(
-        "VCT_JAX_CACHE",
-        os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                     ".jax_cache"))
-    try:
-        import jax
-        jax.config.update("jax_compilation_cache_dir", cache)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    except Exception:
-        pass
-
-
 def synth_clip(w, h, n, seed=42):
     rng = np.random.default_rng(seed)
     xx, yy = np.meshgrid(np.arange(w), np.arange(h))
@@ -73,6 +61,36 @@ def synth_clip(w, h, n, seed=42):
     return frames
 
 
+def ra_config(w, h, hash_sei=False):
+    """The RA GOP-8 CTB32 quadtree configuration of the headline (QP32);
+    rate measurements run without the 432-bit hash SEI per picture."""
+    from video_codecs_tpu.models.hevc import headers
+
+    return headers.HevcConfig(width=w, height=h, qp=32, log2_ctb=5,
+                              log2_min_cb=3, log2_max_tb=5,
+                              reorder_pics=3, sign_data_hiding=True,
+                              rdoq="lite", merge_cands=5, hash_sei=hash_sei,
+                              temporal_mvp=True)
+
+
+def intra_config(w, h):
+    """All-intra device quadtree, QP32 (config 1)."""
+    from video_codecs_tpu.models.hevc import headers
+
+    return headers.HevcConfig(width=w, height=h, qp=32, log2_ctb=5,
+                              log2_min_cb=3, log2_max_tb=5,
+                              sign_data_hiding=True, rdoq="lite")
+
+
+def ldp_config(w, h):
+    """Low-delay P, 4 refs, merge-5 + TMVP, QP32 (config 2)."""
+    from video_codecs_tpu.models.hevc import headers
+
+    return headers.HevcConfig(width=w, height=h, qp=32, num_refs=4,
+                              merge_cands=5, temporal_mvp=True,
+                              sign_data_hiding=True)
+
+
 def psnr_y(frames, recs):
     import math
     a = np.concatenate([f[0].astype(np.float64).ravel() for f in frames])
@@ -84,14 +102,10 @@ def psnr_y(frames, recs):
 def bench_ra_1080():
     """North star: 1080p RA GOP-8 on the device CTB32 inter quadtree
     (skip/residual CU32 tree + TU8 RQT + full RDOQ + HM lambda ladder)."""
-    from video_codecs_tpu.models.hevc import headers, inter_qt
+    from video_codecs_tpu.models.hevc import inter_qt
 
     frames = synth_clip(1920, 1072, 9)
-    cfg = headers.HevcConfig(width=1920, height=1072, qp=32, log2_ctb=5,
-                             log2_min_cb=3, log2_max_tb=5,
-                             reorder_pics=3, sign_data_hiding=True,
-                             rdoq="lite", merge_cands=5, hash_sei=False,
-                             temporal_mvp=True)
+    cfg = ra_config(1920, 1072)
     # cu8=False on the 1080p headline: the CU8 tree is the dominant
     # new device cost (4x blocks of 8-grid ME + TU8/4x4 residual
     # trials) and measures BD-neutral on the real-content sweep
@@ -109,7 +123,7 @@ def bench_ra_1080():
 
 def bench_ra_foreman():
     """RA GOP-8 on real content (foreman fixture cycled to 9 frames)."""
-    from video_codecs_tpu.models.hevc import headers, inter_qt
+    from video_codecs_tpu.models.hevc import inter_qt
     from video_codecs_tpu.utils import yuv
 
     path = "/root/reference/jm18.5/bin/foreman_part_qcif.yuv"
@@ -117,12 +131,8 @@ def bench_ra_foreman():
     cyc = [0, 1, 2, 1]
     frames = [(ys[cyc[i % 4]], us[cyc[i % 4]], vs[cyc[i % 4]])
               for i in range(9)]
-    cfg = headers.HevcConfig(width=176, height=144, qp=32, log2_ctb=5,
-                             log2_min_cb=3, log2_max_tb=5,
-                             reorder_pics=3, sign_data_hiding=True,
-                             rdoq="lite", merge_cands=5, hash_sei=False,
-                             temporal_mvp=True)
-    enc = inter_qt.QtDeviceRandomAccessEncoder(cfg, search_range=16)
+    enc = inter_qt.QtDeviceRandomAccessEncoder(ra_config(176, 144),
+                                               search_range=16)
     stream, recons = enc.encode_sequence_ra(frames)
     kbps = len(stream) * 8 * 30 / len(frames) / 1000
     return kbps, psnr_y(frames, recons)
@@ -130,7 +140,7 @@ def bench_ra_foreman():
 
 def bench_jm_baseline():
     """JM H.264 baseline (CAVLC, full search) on the foreman fixture —
-    the DEVICE P-slice engine (ME/transform/decision on TPU, host
+    the DEVICE P-slice engine (ME/transform/decision on the device, host
     CAVLC); fps timed warm on a 24-frame cycle."""
     from video_codecs_tpu.models.h264.inter_jax import DeviceH264Encoder
     from video_codecs_tpu.utils import yuv
@@ -152,13 +162,10 @@ def bench_jm_baseline():
 
 def bench_intra_qt():
     """All-intra device quadtree quality path, 416x240 QP32."""
-    from video_codecs_tpu.models.hevc import headers, quadtree_codec
+    from video_codecs_tpu.models.hevc import quadtree_codec
 
     frames = synth_clip(416, 240, 17)
-    cfg = headers.HevcConfig(width=416, height=240, qp=32, log2_ctb=5,
-                             log2_min_cb=3, log2_max_tb=5,
-                             sign_data_hiding=True, rdoq="lite")
-    enc = quadtree_codec.QuadtreeFastEncoder(cfg)
+    enc = quadtree_codec.QuadtreeFastEncoder(intra_config(416, 240))
     enc.encode_frame_fast(*frames[0])
     fps = 0.0
     for _ in range(2):
@@ -170,13 +177,11 @@ def bench_intra_qt():
 
 def bench_ldp_480():
     """Low-delay P 832x480 on the device inter engine (config 2)."""
-    from video_codecs_tpu.models.hevc import headers, inter_jax
+    from video_codecs_tpu.models.hevc import inter_jax
 
     frames = synth_clip(832, 480, 9)
-    cfg = headers.HevcConfig(width=832, height=480, qp=32, num_refs=4,
-                             merge_cands=5, temporal_mvp=True,
-                             sign_data_hiding=True)
-    enc = inter_jax.DeviceLowDelayEncoder(cfg, search_range=64)
+    enc = inter_jax.DeviceLowDelayEncoder(ldp_config(832, 480),
+                                          search_range=64)
     enc.encode_sequence_ldp(frames)
     t0 = time.time()
     stream, recons = enc.encode_sequence_ldp(frames)
@@ -197,7 +202,9 @@ def _emit(ra_fps, extra) -> None:
 
 
 def main() -> None:
-    _enable_jax_cache()
+    from video_codecs_tpu.utils import jax_cache
+
+    jax_cache.enable()
     budget = float(os.environ.get("VCT_BENCH_BUDGET_S", "2100"))
     configs = os.environ.get("VCT_BENCH_CONFIGS",
                              "ra,intra,ldp,foreman,jm").split(",")

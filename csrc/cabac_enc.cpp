@@ -1,6 +1,6 @@
 // Native CABAC slice serializer for the all-intra HEVC build.
 //
-// The serial tail of the two-phase encoder (SURVEY.md §7.1): the TPU
+// The serial tail of the two-phase encoder (SURVEY.md §7.1): the device
 // produces modes/levels in parallel; this C++ hot loop binarizes and
 // arithmetic-codes the slice data.  Behavioral twin of
 // video_codecs_tpu/entropy/{cabac,residual}.py + intra_codec._encode_ctu —

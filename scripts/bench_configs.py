@@ -2,7 +2,7 @@
 
 Produces the 'reference measured' and 'ours' columns for BASELINE.md.
 Reference encoders are single-thread CPU (-O3) on this machine; ours run
-on whatever JAX platform is active (CPU here unless run on the TPU host).
+on whatever JAX platform is active (the CPU unless a card is present).
 
 Usage: python scripts/bench_configs.py [--configs 2,3,4,5] [--frames N]
 Results append to scripts/bench_configs_out.json.

@@ -108,15 +108,12 @@ def main():
     ap.add_argument("--qps", default="27,32,37")
     ap.add_argument("--hm-only", action="store_true")
     ap.add_argument("--ours-only", action="store_true")
-    ap.add_argument("--jax-cache", default="/root/repo/.jax_cache")
     args = ap.parse_args()
     qps = [int(q) for q in args.qps.split(",")]
 
-    if not args.hm_only and args.jax_cache:
-        import jax
-        jax.config.update("jax_compilation_cache_dir", args.jax_cache)
-        jax.config.update("jax_persistent_cache_min_compile_time_secs",
-                          1.0)
+    if not args.hm_only:
+        from video_codecs_tpu.utils import jax_cache
+        jax_cache.enable()
 
     frames, w, h = get_clip(args.clip)
     sr = 16 if w <= 416 else 64

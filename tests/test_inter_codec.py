@@ -49,6 +49,44 @@ def test_ldp_roundtrip():
     assert p > 30, p
 
 
+@pytest.mark.parametrize("seed", range(4))
+def test_amvp_matches_spec_derivation(seed):
+    """Our 16x16-grid AMVP (motion.amvp_candidates, used to write the
+    stream) equals the general decoder's spec derivation
+    (motion_hm.amvp_candidates_pu) on random two-reference grids, incl.
+    no-A-neighbor blocks whose B neighbors use different references."""
+    from video_codecs_tpu.models.hevc import motion, motion_hm
+
+    rng = np.random.default_rng(seed)
+    bw, bh, cur_poc, ref_pocs = 6, 5, 2, [1, 0]
+    info = [[None] * bw for _ in range(bh)]
+    grid = motion.NeighborGrid(info, bw, bh)
+    pm = motion_hm.PicMotion(bw * 16, bh * 16, cur_poc)
+    ctx = motion_hm.SliceMotionCtx(
+        cur_poc=cur_poc, ref_pocs=[ref_pocs, []], is_b=False, max_merge=5,
+        tmvp=False, col=None, collocated_from_l0=True, no_backward=True)
+    for by in range(bh):
+        for bx in range(bw):
+            for r in range(len(ref_pocs)):
+                ours = motion.amvp_candidates(grid, bx, by, r, ref_pocs,
+                                              cur_poc, None, False)
+                spec = motion_hm.amvp_candidates_pu(
+                    pm, ctx, bx * 16, by * 16, 16, 16, 0, r, 4)
+                assert ours == spec, (bx, by, r, ours, spec)
+            b = inter_codec.BlockInfo()
+            if rng.random() < 0.3:
+                pm.set_intra(bx * 16, by * 16, 16)
+            else:
+                b.pred_mode = inter_codec.MODE_INTER
+                r = int(rng.integers(0, 2))
+                b.mv = tuple(int(v) for v in rng.integers(-64, 65, 2))
+                b.ref_idx, b.ref_poc = r, ref_pocs[r]
+                pm.set_pu(bx * 16, by * 16, 16, 16, motion_hm.Motion(
+                    [True, False], [b.mv, (0, 0)], [r, -1],
+                    [ref_pocs[r], 0]))
+            info[by][bx] = b
+
+
 @pytest.mark.skipif(not os.path.exists(HM_DECODER),
                     reason="HM reference decoder not built")
 def test_ldp_hm_conformance(tmp_path):

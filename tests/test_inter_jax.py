@@ -1,4 +1,4 @@
-"""Device (TPU) LD-P inter encoder: self-conformance + toolset checks.
+"""Device LD-P inter encoder: self-conformance + toolset checks.
 
 The device engine makes its own decisions (approximate merge on device,
 spec-exact reconciliation on host), so streams differ from the host

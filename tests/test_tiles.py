@@ -49,6 +49,19 @@ def test_shard_map_tiles_match_host(n_tiles):
     assert stream_host == stream_dev
 
 
+def test_tiles_on_one_device_match_host():
+    """A one-device mesh runs every tile in turn: same bytes as the host."""
+    import jax
+    from jax.sharding import Mesh
+
+    cfg = _cfg(2)
+    frames = [synth_frame(512, 128, s) for s in range(2)]
+    stream_host, _ = intra_codec.IntraEncoder(cfg).encode_sequence(frames)
+    mesh = Mesh(np.array(jax.devices()[:1]), ("tile",))
+    stream_dev, _ = tiles.encode_sequence_tiles(cfg, frames, mesh)
+    assert stream_host == stream_dev
+
+
 @pytest.mark.skipif(not os.path.exists(HM_DECODER),
                     reason="HM reference decoder not built")
 def test_tiles_hm_conformance(tmp_path):

@@ -1,1 +1,1 @@
-"""video_codecs_tpu — TPU-native HEVC/H.264 codec framework."""
+"""video_codecs_tpu — HEVC/H.264 codec framework on JAX devices."""

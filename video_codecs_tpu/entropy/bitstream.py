@@ -5,7 +5,7 @@ emulation prevention at NAL write), TLibDecoder/AnnexBread.cpp:61
 (start-code scan), TLibEncoder/NALwrite.cpp:125 (EBSP insertion).
 
 Host-side sequential code by nature (SURVEY.md §7.1 "entropy coding split"):
-this is the thin serial tail after the parallel TPU passes.
+this is the thin serial tail after the parallel device passes.
 """
 
 from __future__ import annotations

@@ -11,7 +11,7 @@ bits-outstanding), which emits the identical bitstream to HM's buffered-byte
 variant.
 
 This is deliberately host-side sequential code — the serial tail of the
-two-phase design (SURVEY.md §7.1): the TPU produces decisions/coefficients
+two-phase design (SURVEY.md §7.1): the device produces decisions/coefficients
 in parallel, CABAC serializes per-substream.  A C++ twin replaces the hot
 loop later; this Python version is the behavioral reference.
 """

@@ -1,4 +1,4 @@
-"""Device-side H.264 P-slice engine — the TPU port of the JM P hot
+"""Device-side H.264 P-slice engine — the device port of the JM P hot
 loop (VERDICT round-4 ask #4: the host python engine was 16x slower
 than single-thread JM).
 
@@ -230,7 +230,7 @@ def encode_p_dev(y, u, v, ref_y, ref_u, ref_v,
 
 
 class DeviceH264Encoder(H264Encoder):
-    """H.264 baseline encoder with the P-slice pixel pipeline on TPU
+    """H.264 baseline encoder with the P-slice pixel pipeline on the device
     (ME + mode decision + transforms); host CAVLC phase 2."""
 
     def __init__(self, width: int, height: int, qp: int = 28,

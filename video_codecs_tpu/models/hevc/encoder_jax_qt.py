@@ -1,5 +1,5 @@
 """Device-side all-intra CU-quadtree encoder (CTB 32, CUs 32/16/8) — the
-TPU fast path for the quality operating point.
+device fast path for the quality operating point.
 
 Replaces HM's recursive xCompressCU RDO (hm-16.5rc1 TEncCu.cpp:349) with
 the SURVEY.md §7.1 batched design:

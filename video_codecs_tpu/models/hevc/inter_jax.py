@@ -1,4 +1,4 @@
-"""Device-side inter (P-slice) encoding engine — the TPU port of the
+"""Device-side inter (P-slice) encoding engine — the device port of the
 LD-P hot loop.
 
 Replaces the sequential host pass of inter_codec.LowDelayEncoder (HM's
@@ -1186,7 +1186,7 @@ def encode_b_frame_dev(y, u, v, ref0_y, ref0_u, ref0_v,
 # ---------------------------------------------------------------------------
 
 class DeviceLowDelayEncoder(pc.LowDelayEncoder):
-    """LD-P encoder whose per-picture pixel pipeline runs on the TPU.
+    """LD-P encoder whose per-picture pixel pipeline runs on the device.
 
     Same bitstream toolset as LowDelayEncoder (CTB=CU=PU=16, multi-ref,
     merge, TMVP, SAO); decisions are made on device, so streams differ
@@ -1537,7 +1537,7 @@ def _device_b_frame(enc, frame, poc, refs, is_anchor):
 
 class DeviceHierarchicalBEncoder(bc.HierarchicalBEncoder):
     """2-level hierarchical-B encoder with the per-picture pixel pipeline
-    on the TPU (same toolset/bitstream syntax as HierarchicalBEncoder)."""
+    on the device (same toolset/bitstream syntax as HierarchicalBEncoder)."""
 
     def __init__(self, cfg, search_range: int = 64,
                  me_method: str = "pyr") -> None:
@@ -1555,7 +1555,7 @@ class DeviceHierarchicalBEncoder(bc.HierarchicalBEncoder):
 
 class DeviceRandomAccessEncoder(ra.RandomAccessEncoder):
     """GOP-driven RA encoder (GOPEntry tables, BASELINE config 3
-    structure) with the per-picture pixel pipeline on the TPU."""
+    structure) with the per-picture pixel pipeline on the device."""
 
     def __init__(self, cfg, gop: tuple = ra.GOP8_RA,
                  search_range: int = 64, me_method: str = "pyr") -> None:

@@ -162,7 +162,10 @@ def amvp_candidates(grid: NeighborGrid, bx: int, by: int, ref_idx: int,
                 mv_a = scale_mv(m[0], cur_poc - target_poc, cur_poc - m[2])
                 break
 
-    # B: B0, B1, B2; scaled pass only when no A neighbor exists
+    # B: B0, B1, B2 with the same reference picture.  When no A neighbor
+    # exists (isScaledFlag == 0) that B takes the A slot and B is derived
+    # again from the first available B neighbor, scaled (spec 8.5.3.2.7
+    # steps 7-8; motion_hm.amvp_candidates_pu)
     b_nbs = [neighbor(bx + 1, by - 1), neighbor(bx, by - 1),
              neighbor(bx - 1, by - 1)]
     mv_b = None
@@ -170,7 +173,8 @@ def amvp_candidates(grid: NeighborGrid, bx: int, by: int, ref_idx: int,
         if m is not None and m[2] == target_poc:
             mv_b = m[0]
             break
-    if mv_b is None and not a_exists:
+    if mv_a is None and not a_exists:
+        mv_a, mv_b = mv_b, None
         for m in b_nbs:
             if m is not None:
                 mv_b = scale_mv(m[0], cur_poc - target_poc, cur_poc - m[2])

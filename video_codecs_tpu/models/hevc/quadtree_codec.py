@@ -700,7 +700,7 @@ def _recon(pred, lv, qp, log2, dst):
 
 
 # ---------------------------------------------------------------------------
-# TPU fast path (device quadtree: models/hevc/encoder_jax_qt.py)
+# Device fast path (device quadtree: models/hevc/encoder_jax_qt.py)
 # ---------------------------------------------------------------------------
 
 def build_qt_tree(cfg: headers.HevcConfig, depth8, m8, m16, m32,
@@ -742,7 +742,7 @@ def build_qt_tree(cfg: headers.HevcConfig, depth8, m8, m16, m32,
 
 
 class QuadtreeFastEncoder:
-    """All-intra encoder at the quality operating point on TPU.
+    """All-intra encoder at the quality operating point on the device.
 
     Device (encoder_jax_qt): batched per-size mode sweeps + trial-coded
     tree-DP decision, Z-availability wavefront recon, RDOQ-lite, SBH,

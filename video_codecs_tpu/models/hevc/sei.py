@@ -460,7 +460,7 @@ class TempMotionConstrainedTileSets:
     tile rectangles in tile-index units; the optional third element is the
     per-set exact_sample_value_match_flag (only coded when all_exact_match
     is false; defaults to True).  The independently-decodable-tiles promise
-    is what the TPU tile sharding relies on."""
+    is what the device tile sharding relies on."""
     all_exact_match: bool = True
     each_tile_one_set: bool = False
     tile_sets: tuple = ((0, ((0, 0),)),)

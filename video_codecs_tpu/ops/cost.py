@@ -1,8 +1,8 @@
-"""Distortion kernels: SAD / SSE / Hadamard SATD, batched (TPU-native).
+"""Distortion kernels: SAD / SSE / Hadamard SATD, batched on the device.
 
 Parity reference: hm-16.5rc1/source/Lib/TLibCommon/TComRdCost.cpp —
 function-pointer table (:228-260), xGetSAD*, xGetSSE*, xCalcHADs8x8.
-On TPU these are reductions / small matmuls over batched blocks; the
+On the device these are reductions / small matmuls over batched blocks; the
 encoder mode sweep calls them over [blocks, modes] at once.
 """
 

@@ -1,4 +1,4 @@
-"""HEVC deblocking filter (spec 8.7.2), batched over all edges — TPU-native.
+"""HEVC deblocking filter (spec 8.7.2), batched over all edges, on the device.
 
 Parity reference: hm-16.5rc1/source/Lib/TLibCommon/TComLoopFilter.cpp —
 loopFilterPic (:130) vertical-then-horizontal over the picture,

@@ -1,4 +1,4 @@
-"""HEVC intra prediction, batched over (blocks, modes) — TPU-native.
+"""HEVC intra prediction, batched over (blocks, modes) on the device.
 
 Parity references (hm-16.5rc1/source/Lib/TLibCommon):
   TComPattern.cpp:749 fillReferenceSamples (availability + substitution),
@@ -19,8 +19,13 @@ array (2-tap interpolation for angular, 4-tap for planar, uniform for DC),
 followed by a rounding shift.  We therefore precompute, per TB size, a
 static weight tensor W[35, N*N, 2*(4N+1)] over the concatenation
 [unfiltered ref, smoothed ref] (mode-dependent smoothing selects the half),
-and evaluate ALL 35 modes of a batch of blocks as ONE matmul — ideal for
-the MXU.  Weights/activations stay < 2^24 so f32 accumulation is exact.
+and evaluate ALL 35 modes of a batch of blocks as ONE f32 matmul.  It is
+exact at default precision, even where the device reads f32 operands as
+TF32 (11 significant bits, as on an H100): every weight is an integer of
+at most 64 and every sample of at most 1023 (10-bit), both of which fit
+11 bits, and every sum stays below 2^24 (the f32 accumulator's integer
+range).  tests/test_chip_smoke.py emulates the TF32 rounding; chip_smoke
+compares with predict_intra_np on the card.
 The only non-linear parts — DC boundary filtering and the pure-H/V edge
 filter (luma, N<=16) — are applied as elementwise fixups afterwards.
 """

@@ -2,7 +2,7 @@
 
 Parity reference (behavioral, not structural): hm-16.5rc1 TEncSearch
 xMotionEstimation :3663 / xPatternSearch :3786 / xPatternSearchFracDIF
-:4240.  TPU-native shape per SURVEY.md §7.1: instead of TZSearch's
+:4240.  Device shape per SURVEY.md §7.1: instead of TZSearch's
 data-dependent early exits, evaluate a full fixed window of candidates for
 every block in one tensor op (SAD over [B, (2R+1)^2] shifts), then refine
 half- and quarter-pel with batched on-the-fly MC + SATD.  All blocks of a
@@ -82,7 +82,7 @@ def _tz_points(search_range: int) -> tuple[np.ndarray, np.ndarray]:
 def tz_search(ref: jnp.ndarray, cur: jnp.ndarray, x0, y0, n: int,
               search_range: int,
               raster_stride: int = 5) -> tuple[jnp.ndarray, jnp.ndarray]:
-    """TZSearch as fixed-shape masked tensor stages (TPU-native twin of
+    """TZSearch as fixed-shape masked tensor stages (device twin of
     TEncSearch::xTZSearch :3881).
 
     Stages, all batched over blocks with no data-dependent shapes:
@@ -209,7 +209,7 @@ def _pool4(a: jnp.ndarray) -> jnp.ndarray:
 
 def pyramid_search(ref: jnp.ndarray, cur: jnp.ndarray, x0, y0, n: int,
                    search_range: int) -> tuple[jnp.ndarray, jnp.ndarray]:
-    """Hierarchical integer search — the TPU-native large-range engine.
+    """Hierarchical integer search — the device large-range engine.
 
     Behavioral stand-in for HM's TZSearch (TEncSearch.cpp:3881) at ranges
     where the full window explodes: a quarter-resolution exhaustive search

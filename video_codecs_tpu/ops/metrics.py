@@ -1,4 +1,4 @@
-"""Quality metrics: PSNR, SSIM, MS-SSIM, SSIM3D, STVSSIM — TPU-native convs.
+"""Quality metrics: PSNR, SSIM, MS-SSIM, SSIM3D, STVSSIM as device convs.
 
 Parity references: jm18.5/lencod/src/img_dist_ssim.c / img_dist_ms_ssim.c
 (8x8 uniform-window SSIM, 5-scale MS-SSIM), stvssim_src/stvssimrdo2_att/
@@ -25,7 +25,8 @@ def _box_moments(x: jnp.ndarray, win: int):
     """Mean/e2 maps via a uniform win x win window (valid positions)."""
     k = jnp.ones((win, win), jnp.float32) / (win * win)
     def conv(a):
-        # HIGHEST: TPU convs default to bf16 multiplies, which costs
+        # HIGHEST: at default precision an accelerator may run f32 convs
+        # with reduced-precision multiplies (bf16 or TF32), which costs
         # ~7e-4 absolute SSIM vs the f32 reference math (oracle-tested)
         return jax.lax.conv_general_dilated(
             a[None, None], k[None, None], (1, 1), "VALID",

@@ -1,4 +1,4 @@
-"""Device (batched) full RDOQ — the TPU twin of ops/rdoq.rdoq_np.
+"""Device (batched) full RDOQ — the device twin of ops/rdoq.rdoq_np.
 
 Behavioral parity: hm-16.5rc1/source/Lib/TLibCommon/TComTrQuant.cpp
 xRateDistOptQuant (:2129) with xGetCodedLevel / xGetICRate /

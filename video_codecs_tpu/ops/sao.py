@@ -127,7 +127,7 @@ def decide_ctu(orig: np.ndarray, rec: np.ndarray, x0: int, y0: int,
 def sao_stats_dev(orig, rec, ctb: int):
     """Device batched per-CTU SAO statistics for one plane.
 
-    TPU twin of TEncSampleAdaptiveOffset::getStatistics (:285): the four
+    Device twin of TEncSampleAdaptiveOffset::getStatistics (:285): the four
     EO class category maps and the BO band map are whole-plane vector
     ops; per-CTU per-category counts/diff-sums are box reductions.
     Plane dims must be CTB multiples (callers pad or use exact grids).

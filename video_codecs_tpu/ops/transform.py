@@ -1,9 +1,9 @@
-"""HEVC core transforms as batched int32 matmuls (TPU-native).
+"""HEVC core transforms as batched int32 matmuls on the device.
 
 Parity reference: hm-16.5rc1/source/Lib/TLibCommon/TComTrQuant.cpp —
 partialButterfly{4,8,16,32} (:388-980), fastForwardDst/fastInverseDst
 (:414-474), xT/xIT (:1952,1988).  HM implements these as per-row butterflies;
-on TPU the same math is two dense matmul stages with a rounding shift between
+on the device the same math is two dense matmul stages with a rounding shift between
 them, batched over an arbitrary leading axis of blocks so thousands of TUs
 transform in one XLA op.
 

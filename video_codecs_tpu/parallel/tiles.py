@@ -5,7 +5,8 @@ bitstream construct every HEVC implementation shards on; here they become
 actual tensor parallelism.  Each device receives one tile column's pixels
 via shard_map and runs the FULL per-tile pipeline (batched 35-mode sweep +
 wavefront recon) with zero cross-device communication — tile independence
-is exactly what the standard guarantees.  Cross-tile deblocking
+is exactly what the standard guarantees.  A mesh of one device runs the
+same per-tile pipeline tile after tile.  Cross-tile deblocking
 (loop_filter_across_tiles=1) runs after an all-gather of the recon planes,
 and the per-tile CABAC substreams serialize concurrently on host, joined
 by slice-header entry points.
@@ -27,11 +28,11 @@ from video_codecs_tpu.ops import deblock as deblock_ops
 
 def encode_frame_tiles(cfg: headers.HevcConfig, y, u, v, mesh=None):
     """Encode one all-intra frame with cfg.tile_columns tiles sharded over
-    a device mesh; returns ([slice_nal, sei_nal], recon)."""
+    a device mesh (one tile per device, or every tile on a mesh of one
+    device); returns ([slice_nal, sei_nal], recon)."""
     import jax
     import jax.numpy as jnp
     from jax.sharding import Mesh, PartitionSpec as P
-    from jax.experimental.shard_map import shard_map
 
     n_tiles = cfg.tile_columns
     bw, bh = cfg.width // 16, cfg.height // 16
@@ -56,15 +57,26 @@ def encode_frame_tiles(cfg: headers.HevcConfig, y, u, v, mesh=None):
         return (st["rec_y"], st["rec_u"], st["rec_v"], modes,
                 st["levels_y"], st["levels_cb"], st["levels_cr"], st["cbf"])
 
-    sharded = shard_map(
-        per_tile, mesh=mesh,
-        in_specs=(P(None, "tile"), P(None, "tile"), P(None, "tile")),
-        out_specs=(P(None, "tile"), P(None, "tile"), P(None, "tile"),
-                   P(None, "tile"), P("tile"), P("tile"), P("tile"),
-                   P(None, "tile")),
-        check_rep=False)
-
-    out = jax.jit(sharded)(jnp.asarray(y), jnp.asarray(u), jnp.asarray(v))
+    # 1: concatenated along columns (picture layout); 0: along blocks
+    axes = (1, 1, 1, 1, 0, 0, 0, 1)
+    if mesh.devices.size == 1:
+        tile_fn = jax.jit(per_tile)
+        tw, cw = tbw * 16, tbw * 8
+        parts = [tile_fn(jnp.asarray(y[:, t * tw:(t + 1) * tw]),
+                         jnp.asarray(u[:, t * cw:(t + 1) * cw]),
+                         jnp.asarray(v[:, t * cw:(t + 1) * cw]))
+                 for t in range(n_tiles)]
+        out = tuple(jnp.concatenate([p[i] for p in parts], axis=a)
+                    for i, a in enumerate(axes))
+    else:
+        sharded = jax.shard_map(
+            per_tile, mesh=mesh,
+            in_specs=(P(None, "tile"), P(None, "tile"), P(None, "tile")),
+            out_specs=tuple(P(None, "tile") if a else P("tile")
+                            for a in axes),
+            check_vma=False)
+        out = jax.jit(sharded)(jnp.asarray(y), jnp.asarray(u),
+                               jnp.asarray(v))
     rec_y, rec_u, rec_v, modes_t, lv_y, lv_cb, lv_cr, cbf = jax.device_get(out)
 
     # cross-tile deblocking on the assembled picture (filter crosses tiles)

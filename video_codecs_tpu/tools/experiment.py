@@ -1,6 +1,6 @@
 """QP-sweep experiment harness + Bjontegaard BD-rate/BD-PSNR.
 
-TPU-native replacement for the reference research harness
+Device-side replacement for the reference research harness
 (stvssim_src/exp_setup/*.sh batch encodes + getAvg_all.sh summary
 scraping + b_data_rdo_new/*.m MATLAB metric-vs-bitrate tables,
 mserdo_plot.m): encode a sequence over a QP ladder with any encoder

@@ -1,4 +1,4 @@
-"""Spec constant tables for HEVC (H.265) — the TPU-native analog of HM's ROM.
+"""Spec constant tables for HEVC (H.265) — the device analog of HM's ROM.
 
 Everything here is a *standard-defined constant* (ITU-T H.265 / ISO 23008-2):
 integer transform matrices, quantization scales, chroma QP mapping, coefficient
